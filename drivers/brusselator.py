@@ -7,7 +7,7 @@
 with zero-flux conditions, stepped IMEX (implicit fractional diffusion,
 explicit nonlinearity).
 
-TPU-native counterpart of /root/reference/drivers/brusselator.py +
+Counterpart of the reference's drivers/brusselator.py +
 brusselatorProblem (nonlocalProblems.py:2450-2592).  The whole IMEX step --
 two mass matvecs, the nonlinearity, and two dense factorized solves -- runs
 as one jitted device function; the time loop is a host loop over it.
@@ -16,10 +16,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 import jax

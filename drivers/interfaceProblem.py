@@ -3,16 +3,12 @@
 jumps at the interface, solved by LU or overlapping-free domain
 decomposition (alternating Schwarz / restricted additive Schwarz).
 
-TPU-native counterpart of /root/reference/drivers/interfaceProblem.py.
+Counterpart of the reference's drivers/interfaceProblem.py.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 

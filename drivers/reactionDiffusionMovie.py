@@ -5,7 +5,7 @@ Reads the HDF5 output of drivers/brusselator.py (--hdf5Output) and writes one
 PNG per stored timestep into reactionDiffusionMovie/<name>/; if ffmpeg is
 available the frames are also encoded into an .mp4.
 
-TPU-native counterpart of /root/reference/drivers/reactionDiffusionMovie.py.
+Counterpart of the reference's drivers/reactionDiffusionMovie.py.
 """
 import os
 import sys
@@ -14,10 +14,6 @@ from shutil import rmtree, which
 from subprocess import Popen
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 

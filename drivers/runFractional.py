@@ -2,18 +2,12 @@
 """Solve fractional Poisson problems (infinite horizon) in dense/sparse/H2
 formats with direct or multigrid-preconditioned Krylov solvers.
 
-TPU-native counterpart of /root/reference/drivers/runFractional.py.
+Counterpart of the reference's drivers/runFractional.py.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-# Regression drivers default to CPU (f64); set PYNUCLEUS_PLATFORM=tpu to run
-# on the accelerator (f32 path, see bench.py).
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 from pynucleus_tpu.base import driver
 from pynucleus_tpu.nl.problems import fractionalLaplacianProblem

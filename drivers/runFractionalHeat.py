@@ -1,16 +1,12 @@
 #!/usr/bin/env python3
 """Transient fractional heat equation via theta-scheme time stepping.
 
-TPU-native counterpart of /root/reference/drivers/runFractionalHeat.py.
+Counterpart of the reference's drivers/runFractionalHeat.py.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 from pynucleus_tpu.base import driver
 from pynucleus_tpu.nl.problems import transientFractionalProblem

@@ -2,7 +2,7 @@
 """Complex Helmholtz with impedance boundary conditions, solved by GMRES
 preconditioned with a complex-shifted-Laplacian geometric multigrid.
 
-TPU-native counterpart of /root/reference/drivers/runHelmholtz.py:
+Counterpart of the reference's drivers/runHelmholtz.py:
   A      = S - omega^2 M + i omega MB            (solve operator)
   A_prec = A + 0.5 i omega^2 M                   (shifted MG hierarchy)
 where MB is the boundary mass matrix; coarse-level MB is the Galerkin
@@ -13,10 +13,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 import jax.numpy as jnp

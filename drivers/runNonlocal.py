@@ -1,16 +1,12 @@
 #!/usr/bin/env python3
 """Finite-horizon nonlocal Poisson problems.
 
-TPU-native counterpart of /root/reference/drivers/runNonlocal.py.
+Counterpart of the reference's drivers/runNonlocal.py.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 from pynucleus_tpu.base import driver
 from pynucleus_tpu.nl.problems import nonlocalPoissonProblem

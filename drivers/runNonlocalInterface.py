@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two-domain nonlocal interface problem with solution and flux jumps.
 
-TPU-native counterpart of /root/reference/drivers/runNonlocalInterface.py:
+Counterpart of the reference's drivers/runNonlocalInterface.py:
 each subdomain assembles its own finite-horizon nonlocal Neumann operator
 (interface pairs weighted by interfaceTwoPoint so the two forms tile the
 doubled interaction region), the global system couples them through
@@ -11,10 +11,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 import jax.numpy as jnp

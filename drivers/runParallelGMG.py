@@ -3,7 +3,7 @@
 MG/FMG cycles and MG-preconditioned Krylov methods (PCG, PGMRES, PBICGSTAB,
 FMG-PCG, FMG-PGMRES), on interval/square/cube for P1-P3 elements.
 
-TPU-native counterpart of /root/reference/drivers/runParallelGMG.py.  The
+Counterpart of the reference's drivers/runParallelGMG.py.  The
 reference parallelizes over MPI ranks with overlapping-mesh partitions
 (algebraicOverlaps halo accumulate); here `--ranks N` creates an N-device
 jax.sharding.Mesh and the fine levels' CSR matvecs are row-sharded with a
@@ -17,10 +17,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 import jax.numpy as jnp

@@ -3,16 +3,12 @@
 square/interval), comparing MG/FMG cycles and (preconditioned) Krylov
 solvers.
 
-TPU-native counterpart of /root/reference/drivers/runSerialGMG.py.
+Counterpart of the reference's drivers/runSerialGMG.py.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 import jax.numpy as jnp

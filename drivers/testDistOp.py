@@ -4,9 +4,9 @@ dense/sparse/H2 formats, distribute it over a jax device mesh in 'bcast'
 (replicated input vector) and 'halo' (sharded vector + ppermute neighbour
 exchange) modes, cross-check the matvecs, and run a distributed CG solve.
 
-TPU-native counterpart of /root/reference/drivers/testDistOp.py: the
+Counterpart of the reference's drivers/testDistOp.py: the
 reference's MPI ranks map to devices of a jax.sharding.Mesh; Bcast becomes a
-replicated sharding, the halo exchange becomes lax.ppermute over ICI, and the
+replicated sharding, the halo exchange becomes lax.ppermute, and the
 distributed CG inner products are jnp.vdot on sharded arrays (XLA inserts the
 psum).  Rank counts do not change the numerics, matching the reference caches
 where the 4-rank values are pinned.
@@ -18,10 +18,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 import jax

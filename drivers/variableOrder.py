@@ -3,16 +3,12 @@
 problems for a family of spatially varying orders s(x, y) in dense (and
 optionally H2) format.
 
-TPU-native counterpart of /root/reference/drivers/variableOrder.py.
+Counterpart of the reference's drivers/variableOrder.py.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 

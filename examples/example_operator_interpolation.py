@@ -11,10 +11,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get('PYNUCLEUS_PLATFORM', 'cpu') == 'cpu':
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
-
 import numpy as np
 
 from pynucleus_tpu.base import solverFactory

@@ -1,9 +1,9 @@
-"""pynucleus_tpu: a TPU-native nonlocal finite element framework.
+"""pynucleus_tpu: a JAX nonlocal finite element framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of PyNucleus
+A ground-up JAX/XLA rebuild of the capabilities of PyNucleus
 (sandialabs/PyNucleus): nonlocal operator assembly (fractional, peridynamic,
 integrable kernels), dense/sparse/hierarchical (H2) operator formats, Krylov
-solvers and geometric multigrid, distributed over TPU device meshes with
+solvers and geometric multigrid, distributed over device meshes with
 jax.sharding instead of MPI.
 """
 from . import config  # noqa: F401  — must be first: enables x64

@@ -2,7 +2,7 @@
 
 Counterpart of /root/reference/base/PyNucleus_base/convergence.{pxd,pyx}
 (convergenceCriterion:19, noOpConvergenceCriterion:37, plus the
-master/client machinery for asynchronous distributed updates).  On a TPU
+master/client machinery for asynchronous distributed updates).  On a device
 mesh there is a single program and norms are computed with jnp reductions
 (XLA inserts the psum on sharded arrays), so the criteria reduce to
 residual monitors with the same API.

@@ -1,6 +1,6 @@
 """Generic name -> (constructor, params, aliases) registry.
 
-TPU-native counterpart of the reference's factory framework
+Counterpart of the reference's factory framework
 (/root/reference/base/PyNucleus_base/factory.py:11).
 """
 

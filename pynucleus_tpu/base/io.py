@@ -1,7 +1,7 @@
 """Serialization: dict <-> HDF5, mesh/dofmap HDF5 checkpointing, and legacy
 VTK export.
 
-TPU-native counterpart of the reference's state save/load layer
+Counterpart of the reference's state save/load layer
 (ref base/PyNucleus_base/utilsFem.py:246-370 saveDictToHDF5/loadDictFromHDF5,
 fem/PyNucleus_fem/mesh.py:1826-1959 meshNd.HDF5write/HDF5read/exportVTK,
 fem/PyNucleus_fem/DoFMaps.pyx DoFMap.HDF5write/HDF5read).  Assembled

@@ -1,10 +1,10 @@
-"""Linear operator algebra, TPU-native.
+"""Linear operator algebra.
 
 Counterpart of the reference's operator hierarchy
 (/root/reference/base/PyNucleus_base/linear_operators.{pxd,pyx} and the
 LinearOperator_{SCALAR}.pxi / CSR_.../ SSS_... templates).  Instead of Cython
 classes with C matvec loops, operators here are pytree-registered dataclasses
-whose ``matvec`` is pure JAX: dense matvecs hit the MXU, sparse formats use
+whose ``matvec`` is pure JAX: dense matvecs are matmuls, sparse formats use
 gather + segment-sum which XLA fuses, and every operator can flow through
 ``jax.jit`` as an argument.
 
@@ -104,8 +104,7 @@ class LinearOperator:
 
     def astype(self, dtype):
         """Cast all floating-point leaves to dtype (works for any
-        pytree-registered operator; f32 is the fast TPU path — f64 is
-        emulated on the MXU)."""
+        pytree-registered operator)."""
         def cast(a):
             if hasattr(a, 'dtype') and jnp.issubdtype(a.dtype, jnp.floating):
                 return _jd(a, dtype)

@@ -1,4 +1,4 @@
-"""Direct and Krylov solvers, TPU-native.
+"""Direct and Krylov solvers.
 
 Counterpart of /root/reference/base/PyNucleus_base/solvers.pyx and linalg.pyx.
 The Cython loops become jitted ``lax.while_loop`` kernels; direct solves use

@@ -3,7 +3,7 @@
 Counterpart of /root/reference/fem/PyNucleus_fem/femCy.pyx (assembleMatrix,
 assembleRHS and the generated mass_*/stiffness_* tables).  Instead of per-cell
 C loops with hardcoded element tables, element matrices are computed for ALL
-cells at once with einsums over static shape-function tables (MXU-friendly),
+cells at once with einsums over static shape-function tables (matmul-friendly),
 then scattered into CSR slots with a segment-sum (the device analogue of the
 reference's sparsityPattern.freeze + addToEntry flow).
 """

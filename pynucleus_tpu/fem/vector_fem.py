@@ -5,7 +5,7 @@ curl-curl/mass assembly.
 Counterpart of /root/reference/fem/PyNucleus_fem/DoFMaps.pyx:904
 (assembleElasticity, Product_DoFMap, N1e_DoFMap:2219) and
 femCy.pyx:1318-1560 (div_div_2d, elasticity_{1,2,3}d_P1, curlcurl_2d).
-Assembly is one batched einsum over all cells (MXU-friendly) + segment-sum
+Assembly is one batched einsum over all cells (matmul-friendly) + segment-sum
 scatter, like the scalar layer.
 """
 import numpy as np

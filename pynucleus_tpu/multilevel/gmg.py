@@ -1,4 +1,4 @@
-"""Geometric multigrid, TPU-native.
+"""Geometric multigrid.
 
 Counterpart of /root/reference/multilevelSolver/PyNucleus_multilevelSolver/
 (multigrid_{SCALAR}.pxi:86-470, smoothers.pyx, restrictionProlongation.pyx,
@@ -12,7 +12,7 @@ hierarchies.py, levels.py).  Design differences:
     coarse shape functions at fine dof nodes (replaces the reference's
     generated per-order restriction_*.pxi tables); R = P^T.
   - Smoothers: damped Jacobi (omega=2/3 default) and Chebyshev (both
-    TPU-friendly); sequential GS/SOR/ILU are intentionally not provided on
+    parallel); sequential GS/SOR/ILU are intentionally not provided on
     device (ref smoothers.pyx gaussSeidelSmoother has no parallel analogue).
 """
 from __future__ import annotations
@@ -169,8 +169,7 @@ jax.tree_util.register_pytree_node(
 
 def _chebSmooth(A, Dinv, b, x, rho, degree, lowerFrac=0.25, zeroGuess=False):
     """Chebyshev semi-iterative smoother targeting D^{-1}A eigenvalues in
-    [lowerFrac*rho, rho] (ref smoothers.pyx:439; no sequential dependency,
-    TPU-friendly)."""
+    [lowerFrac*rho, rho] (ref smoothers.pyx:439; no sequential dependency)."""
     lmax = rho
     lmin = lowerFrac * rho
     theta = 0.5 * (lmax + lmin)
@@ -193,7 +192,7 @@ def _vcycle(levels: _mgLevels, lvl, b, x, gamma=1):
     """Recursive V/W cycle (ref multigrid pxi solveOnLevel:237-291).  Python
     recursion over a static level count — unrolls under jit."""
     if lvl == 0:
-        # mixed-precision hierarchies (f32 fine levels on TPU, f64 coarse
+        # mixed-precision hierarchies (f32 fine levels with an f64 coarse
         # factor or vice versa): solve at the factor's dtype
         return jax.scipy.linalg.lu_solve(
             (levels.coarse_lu, levels.coarse_piv),

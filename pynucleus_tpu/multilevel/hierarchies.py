@@ -6,7 +6,7 @@ paramsForMG), connectors.py (inputConnector:129, repartitionConnector:151,
 pCoarsenConnector:347), levels.py (meshLevel:100, algebraicLevel:336)}.
 
 The reference's hierarchy machinery exists to move meshes between MPI
-communicators (repartition connectors, algebraic overlaps).  On a TPU mesh
+communicators (repartition connectors, algebraic overlaps).  On a device mesh
 there is a single program: levels live as replicated host metadata plus
 device operator pytrees, and 'repartitioning' is a sharding change — so a
 hierarchy here is a list of levels, each {'mesh', 'dm', 'A', 'P', 'R'},

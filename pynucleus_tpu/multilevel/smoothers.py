@@ -3,8 +3,8 @@
 Counterpart of /root/reference/multilevelSolver/PyNucleus_multilevelSolver/
 smoothers.pyx (sorPreconditioner:35, ssorSmoother:247,
 gaussSeidelSmoother:264).  These sweeps have sequential row dependencies
-and do not vectorize onto the MXU, so they run host-side via sparse
-triangular solves; the TPU-native smoothers in the multigrid cycle are
+and do not vectorize, so they run host-side via sparse
+triangular solves; the device smoothers in the multigrid cycle are
 damped Jacobi and Chebyshev (gmg.py).  They are provided for component
 parity and as standalone preconditioners/solvers.
 """
@@ -27,7 +27,7 @@ def _toCSR(A):
 def _sweepOperator(solverObj):
     """Materialize the sweep action M^{-1} as a dense device operator so it
     can live inside the jitted Krylov cores (these host smoothers exist for
-    component parity; the TPU-fast preconditioners are Jacobi/Chebyshev/MG).
+    component parity; the device preconditioners are Jacobi/Chebyshev/MG).
     O(n^2) setup -- intended for moderate problem sizes."""
     from ..base.linear_operators import Dense_LinearOperator
     import jax.numpy as jnp

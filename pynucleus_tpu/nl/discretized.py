@@ -6,6 +6,7 @@ Counterpart of /root/reference/nl/PyNucleus_nl/discretizedProblems.py
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..base.utilsFem import problem, generates, classWithComputedDependencies
@@ -196,9 +197,11 @@ class discretizedNonlocalProblem(problem):
             if needAllLevels or lvl == nLvl - 1:
                 fmt = matrixFormat if lvl == nLvl - 1 else \
                     ('dense' if matrixFormat == 'dense' else matrixFormat)
-                A = assembleNonlocal(dmHierarchy[lvl], kernel,
-                                     matrixFormat=fmt,
-                                     zeroExterior=zeroExterior)
+                # one 'assembly' duration per level; the last is the finest
+                with self.driver.timer('assembly'):
+                    A = jax.block_until_ready(assembleNonlocal(
+                        dmHierarchy[lvl], kernel, matrixFormat=fmt,
+                        zeroExterior=zeroExterior))
                 if boundaryCondition in (NEUMANN, HOMOGENEOUS_NEUMANN):
                     # rank-one shift removes the constant nullspace
                     # (ref discretizedProblems.py:571-576)
@@ -249,8 +252,9 @@ class discretizedNonlocalProblem(problem):
 
     @generates('solver')
     def buildSolver(self, solverType, tol, maxiter, hierarchy):
-        solver = solverFactory.build(solverType, hierarchy=hierarchy,
-                                     setup=True)
+        with self.driver.timer('solver setup'):
+            solver = solverFactory.build(solverType, hierarchy=hierarchy,
+                                         setup=True)
         if isinstance(solver, iterative_solver):
             solver.tolerance = tol
             solver.maxIter = maxiter
@@ -259,7 +263,8 @@ class discretizedNonlocalProblem(problem):
     @generates('modelSolution')
     def solve(self, b, dmInterior, dmBC, solver, boundaryCondition,
               analyticSolution, dirichletData, rhs):
-        uInterior = solver.solve(b.data)
+        with self.driver.timer('solve'):
+            uInterior = jax.block_until_ready(solver.solve(b.data))
         its = getattr(solver, 'iterations', 1)
         resError = float(jnp.linalg.norm(b.data - solver.A @ uInterior))
 

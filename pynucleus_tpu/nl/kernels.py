@@ -1440,7 +1440,7 @@ class DerivativeFractionalKernel(FractionalKernel):
     FractionalKernel derivative=1/2 :1576-1598,1911-1944 with
     constantFractionalLaplacianScalingDerivative).
 
-    TPU-native: instead of hand-derived digamma formulas, the derivative is
+    Instead of hand-derived digamma formulas, the derivative is
     jax-autodiffed from the closed-form normalized radial profile
     g(s, r^2) = C(d, s, delta) * r^{2*(singularity/2)}, so value and any
     derivative order share one code path.  valueSize = 1 (constant s has one
@@ -1523,7 +1523,7 @@ class VectorFractionalKernel(FractionalKernel):
     s.numParameters, derivative=2 -> numParameters**2; eval :1911-1944
     multiplies d^k gamma/ds^k with s.evalGrad/outer product).
 
-    TPU-native: component q is  d^k gamma/ds^k (x,y; s(x,y)) * ds/dp_q(x,y)
+    Component q is  d^k gamma/ds^k (x,y; s(x,y)) * ds/dp_q(x,y)
     — ALL components come from ONE scalar kernel evaluation per quadrature
     point (jvp-autodiffed through the closed-form normalized profile) times
     the order's parameter gradient, so vector assembly is a single pass, not

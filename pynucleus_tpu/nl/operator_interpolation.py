@@ -1,7 +1,7 @@
 """Chebyshev interpolation of the operator family A(s) over ranges of the
 fractional order s.
 
-TPU-native counterpart of /root/reference/nl/PyNucleus_nl/operatorInterpolation.py
+Counterpart of the reference's nl/PyNucleus_nl/operatorInterpolation.py
 and the RangedFractionalKernel dispatch in
 /root/reference/fem/PyNucleus_fem/DoFMaps.pyx:836-863.
 
@@ -15,7 +15,7 @@ where s_{k,m} are Chebyshev nodes of S_k and Theta are the Lagrange basis
 polynomials (evaluated barycentrically).  Node operators are assembled
 lazily and cached; once an interval's node operators are dense they are
 stacked into a single [M+1, N, N] device array so that A(s)·x is ONE fused
-einsum on the MXU instead of M+1 separate matvecs.
+einsum instead of M+1 separate matvecs.
 """
 import numpy as np
 import jax

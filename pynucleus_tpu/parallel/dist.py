@@ -1,6 +1,6 @@
 """Multi-chip distribution over a jax.sharding.Mesh.
 
-TPU-native counterpart of the reference's MPI strategies (SURVEY.md section
+Counterpart of the reference's MPI strategies (SURVEY.md section
 2.9):
   S1 row-sliced dense assembly  -> shard_map over the cell-pair grid + psum
      (ref nonlocalAssembly_{SCALAR}.pxi:1280-1285,1449: per-rank outer-cell
@@ -24,7 +24,8 @@ from ..config import REAL, INDEX, toDevice as _jd
 
 __all__ = ['makeDeviceMesh', 'shardedDenseAssembly', 'rowShardedOperator',
            'distributedSolveStep', 'DistributedRowBlockOperator',
-           'DistributedHaloOperator']
+           'DistributedHaloOperator', 'dryrunShardedDense',
+           'dryrunShardedGMG']
 
 
 def makeDeviceMesh(n_devices=None, axis='d'):
@@ -36,7 +37,7 @@ def makeDeviceMesh(n_devices=None, axis='d'):
 
 def shardedDenseAssembly(dm, kernel, mesh, axis='d'):
     """S1: shard the distant-pair grid over devices, each assembles a partial
-    dense matrix, psum combines (the TPU analogue of the reference's
+    dense matrix, psum combines (the device analogue of the reference's
     row-sliced assembly + MPI Allreduce).
 
     The singular (touching) panels are cheap and assembled host-side once;
@@ -166,7 +167,7 @@ def distributedSolveStep(mesh, A_sharded, b, pad, axis='d', tol=1e-8,
 
 
 # --------------------------------------------------------------------------
-# Distributed operators (TPU analogues of the reference's testDistOp modes,
+# Distributed operators (device analogues of the reference's testDistOp modes,
 # ref clusterMethodCy.pyx DistributedH2Matrix_globalData:3127 (bcast) and
 # DistributedH2Matrix_localData (halo)).
 
@@ -179,7 +180,7 @@ class DistributedRowBlockOperator:
     Works for any operator that can materialize rows (dense, CSR, H2 --
     the row blocks are densified on device; the H2 rank structure is used
     during assembly, the distributed apply trades its memory savings for
-    MXU-friendly blocked matvecs)."""
+    matmul-friendly blocked matvecs)."""
 
     def __init__(self, A, mesh, axis='d'):
         from ..base.linear_operators import LinearOperator
@@ -221,7 +222,7 @@ class DistributedRowBlockOperator:
 class DistributedHaloOperator:
     """S4 'halo' mode for banded operators (finite horizon): rows AND the
     input vector are sharded; each device fetches only the halo strips of x
-    it needs from its neighbours via lax.ppermute (the ICI analogue of the
+    it needs from its neighbours via lax.ppermute (the XLA analogue of the
     reference's MPI halo exchange, DistributedH2Matrix_localData /
     CSR_DistributedLinearOperator).
 
@@ -247,7 +248,7 @@ class DistributedHaloOperator:
             halo = int(np.abs(rr - cc).max()) if len(rr) else 0
         # a single ppermute step each way reaches one neighbouring block;
         # wider interaction (e.g. infinite horizon) keeps x sharded but
-        # gathers it with all_gather (the ICI-collective the reference's
+        # gathers it with all_gather (the device collective the reference's
         # tree-structured localData exchange amounts to)
         self.fullGather = halo > per
         self.halo = 0 if self.fullGather else max(halo, 0)
@@ -341,3 +342,93 @@ def _unflattenHalo(aux, children):
 
 jax.tree_util.register_pytree_node(
     DistributedHaloOperator, _flattenHalo, _unflattenHalo)
+
+
+def _relDiff(a, b):
+    a = np.asarray(a)
+    b = np.asarray(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def dryrunShardedDense(mesh, noRef=11, s=0.25):
+    """S1 smoke: sharded dense assembly and the distributed Jacobi-CG solve
+    of the 1D fractional problem (4095 dofs by default) on `mesh`, each
+    compared with its run on one device.
+
+    s=0.25 keeps kappa ~ h^{-2s} small enough that Jacobi-CG converges at
+    this size, so the residual check is real."""
+    from ..fem import simpleInterval, P1_DoFMap, assembleRHS, constant
+    from ..nl import getFractionalKernel
+
+    m = simpleInterval(-1.0, 1.0).refine()
+    for _ in range(noRef):
+        m = m.refine()
+    dm = P1_DoFMap(m)
+    kernel = getFractionalKernel(1, s)
+    b = assembleRHS(dm, constant(1.0)).data
+    runs = {}
+    for label, msh in (('one', makeDeviceMesh(1)), ('mesh', mesh)):
+        A = shardedDenseAssembly(dm, kernel, msh)
+        Ash, pad = rowShardedOperator(A, msh)
+        x, iters = distributedSolveStep(msh, Ash, b, pad, tol=1e-6,
+                                        maxiter=1000)
+        runs[label] = (A, x, int(iters))
+    (A1, x1, it1), (An, xn, itn) = runs['one'], runs['mesh']
+    errA = _relDiff(An.data, A1.data)
+    errX = _relDiff(xn, x1)
+    res = float(jnp.linalg.norm(b - An @ xn) / jnp.linalg.norm(b))
+    print(f'S1 sharded dense assembly + CG ({mesh.devices.size} devices): '
+          f'dofs={dm.num_dofs}, |A - A_1dev|/|A_1dev| = {errA:.2e}, '
+          f'CG iters={itn} (1 device {it1}), |x - x_1dev|/|x_1dev| = '
+          f'{errX:.2e}, rel residual={res:.2e}')
+    assert errA < 1e-12, errA
+    assert itn == it1, (itn, it1)
+    assert errX < 1e-8, errX
+    assert res < 1e-5, res
+    return {'dofs': dm.num_dofs, 'errA': errA, 'iters': itn, 'errX': errX,
+            'residual': res}
+
+
+def dryrunShardedGMG(mesh, noRef=6):
+    """S2 smoke: PCG with a sharded V-cycle preconditioner on the square
+    Poisson problem; the sharded run must match the serial (one-device)
+    iteration count and solution (ref runParallelGMG.py scope)."""
+    from ..fem import (uniformSquare, P1_DoFMap, assembleRHS,
+                       assembleStiffness, constant)
+    from ..multilevel.gmg import multigrid, buildProlongation
+
+    meshes = [uniformSquare(N=2, ax=0, ay=0, bx=1, by=1)]
+    for _ in range(noRef):
+        meshes.append(meshes[-1].refine())
+    dms = [P1_DoFMap(mm) for mm in meshes]
+    hierarchy = []
+    for lvl, dmL in enumerate(dms):
+        entry = {'A': assembleStiffness(dmL)}
+        if lvl > 0:
+            P_ = buildProlongation(dms[lvl - 1], dmL)
+            entry['P'] = P_
+            entry['R'] = P_.T
+        hierarchy.append(entry)
+    b = assembleRHS(dms[-1], constant(1.0)).data
+    smoother = ('jacobi', {'presmoothingSteps': 2, 'postsmoothingSteps': 2,
+                           'omega': 2.0 / 3.0})
+    runs = {}
+    for label, dmesh in (('serial', None), ('sharded', mesh)):
+        ml = multigrid(hierarchy=hierarchy, smoother=smoother,
+                       deviceMesh=dmesh)
+        ml.tolerance = 1e-8
+        ml.maxIter = 50
+        ml.setup()
+        x = ml.solve(b)
+        runs[label] = (int(ml.iterations), x, float(jnp.linalg.norm(
+            b - hierarchy[-1]['A'].matvec(x))))
+    (itS, xS, resS), (itP, xP, resP) = runs['serial'], runs['sharded']
+    errX = _relDiff(xP, xS)
+    print(f'S2 sharded GMG ({mesh.devices.size} devices): '
+          f'dofs={dms[-1].num_dofs}, iters={itP} (serial {itS}), '
+          f'|x - x_serial|/|x_serial| = {errX:.2e}, residual={resP:.2e} '
+          f'(serial {resS:.2e})')
+    assert itS == itP, (itS, itP)
+    assert errX < 1e-8, errX
+    return {'dofs': dms[-1].num_dofs, 'iters': itP, 'errX': errX,
+            'residual': resP}

@@ -1,6 +1,6 @@
 """Distributed H2 operator with the H2 structure intact (S4 'localData').
 
-TPU-native counterpart of the reference's scalable distributed path,
+Counterpart of the reference's scalable distributed path,
 ``DistributedH2Matrix_localData`` (/root/reference/nl/PyNucleus_nl/
 clusterMethodCy.pyx:3368-3920): per-rank near-field CSR plus cluster
 coefficient exchange (setupNear :3403, setupFar :3500, matvec :3649 =
@@ -23,7 +23,7 @@ Design (no densification anywhere — per-device memory O(N/nd * log N)):
   lists, padded to the max pairwise outbox); one ``all_to_all`` swaps the
   rows point-to-point, receivers gather from the received buffer with
   static indices.  Received bytes are O(nd * maxPairOutbox) ≈ O(own halo)
-  — the ICI analogue of the reference's Alltoallv halo (communicateNear,
+  — the XLA analogue of the reference's Alltoallv halo (communicateNear,
   clusterMethodCy.pyx:3487).  ``bcast=True`` falls back to an
   ``all_gather`` broadcast (the reference's globalData mode).
 * Far field / transfer passes: per-level coefficient arrays are sharded
@@ -32,7 +32,7 @@ Design (no densification anywhere — per-device memory O(N/nd * log N)):
   redundantly (tiny).  Far pairs are assigned to the destination's device
   (or, for shared destinations, the source's device + psum); the source
   coefficients a device's far pairs need from other devices move through a
-  per-level point-to-point packed-outbox ``all_to_all`` — the ICI analogue
+  per-level point-to-point packed-outbox ``all_to_all`` — the XLA analogue
   of communicateFar (clusterMethodCy.pyx:3610-3648).
 
 The whole matvec is ONE jitted ``shard_map`` program with static shapes.
@@ -70,7 +70,7 @@ def _buildHaloExchange(needPerDev, ownerOf, slotOf, nd, bcast=False):
     needPerDev[k]: global ids device k must read but does not own.
     ownerOf[g], slotOf[g]: owning device / local slot of global id g.
 
-    Two modes (the ICI analogues of the reference's communicateNear /
+    Two modes (the XLA analogues of the reference's communicateNear /
     communicateFar, clusterMethodCy.pyx:3487,3610-3648):
 
     * point-to-point (default): owner j packs a SEPARATE outbox row per
@@ -576,7 +576,7 @@ class DistributedH2Matrix:
             # ---- communicateNear: packed-outbox halo exchange of x.
             # bcast mode replicates every outbox (all_gather); default is
             # point-to-point: per-destination outbox rows swapped by ONE
-            # all_to_all — the ICI Alltoallv (clusterMethodCy.pyx:3487)
+            # all_to_all — the device Alltoallv (clusterMethodCy.pyx:3487)
             xpack = jnp.where(loc['sendSlotX'] >= 0,
                               xl[jnp.clip(loc['sendSlotX'], 0, R - 1)], 0.0)
             if bcast:
@@ -752,7 +752,7 @@ class DistributedH2Matrix:
 
 
 class DistributedCSROperator:
-    """Row-sharded CSR with packed-outbox halo exchange for x — the TPU
+    """Row-sharded CSR with packed-outbox halo exchange for x — the device
     analogue of the reference's ``CSR_DistributedLinearOperator``
     (clusterMethodCy.pyx:3157): local near matvec + communicateNear.  Rows
     are split into nd contiguous, nnz-balanced blocks; only halo entries of
@@ -902,7 +902,11 @@ jax.tree_util.register_pytree_node(
 
 def dryrunDistributedH2(mesh, noRef=14):
     """Smoke the S4 path on the given mesh: distributed H2 matvec parity
-    vs the single-device H2 + a distributed CG solve (default 16383 dofs)."""
+    vs the single-device H2, and a distributed Jacobi-CG solve against the
+    same solve on the single-device H2 (default 16383 dofs).
+
+    The CG runs a fixed budget of iterations (it need not converge at this
+    size): both runs must take the same number and agree in the iterate."""
     import numpy as np
     from ..fem import simpleInterval, P1_DoFMap
     from ..nl import getFractionalKernel
@@ -923,13 +927,21 @@ def dryrunDistributedH2(mesh, noRef=14):
                 / jnp.linalg.norm(ref))
     assert err < 1e-10, err
     b = jnp.ones(dm.num_dofs) * float(m.h)
-    M = Diagonal_LinearOperator(1.0 / Ad.diagonal)
-    u, iters, res = _cg_core(Ad, M, b, jnp.zeros_like(b), 1e-8, 200,
-                             use_prec=True)
-    rn = float(jnp.linalg.norm(b - Ad.matvec(u)))
+    runs = []
+    for A in (H, Ad):
+        M = Diagonal_LinearOperator(1.0 / A.diagonal)
+        u, iters, _ = _cg_core(A, M, b, jnp.zeros_like(b), 1e-8, 200,
+                               use_prec=True)
+        runs.append((u, int(iters)))
+    (uS, itS), (uD, itD) = runs
+    errU = float(jnp.linalg.norm(uD - uS) / jnp.linalg.norm(uS))
+    rn = float(jnp.linalg.norm(b - Ad.matvec(uD)) / jnp.linalg.norm(b))
     print(f'dryrunDistributedH2: dofs={dm.num_dofs}, '
           f'|H2 - distH2|x rel = {err:.2e}, '
-          f'CG iters={int(iters)}, residual={rn:.2e}')
+          f'CG iters={itD} (serial {itS}), |u - u_serial|/|u_serial| = '
+          f'{errU:.2e}, rel residual={rn:.2e}')
+    assert itD == itS, (itD, itS)
+    assert errU < 1e-8, errU
 
     # partition-first distributed assembly (no global operator build)
     m2 = simpleInterval(-1.0, 1.0)

@@ -1,7 +1,7 @@
 """Overlapping dof decompositions: mesh overlaps + algebraic
 accumulate/distribute.
 
-TPU-native counterpart of the reference's overlap machinery:
+Counterpart of the reference's overlap machinery:
 
 * mesh overlaps between subdomains —
   /root/reference/fem/PyNucleus_fem/meshOverlaps.pyx:266-1205
@@ -17,7 +17,7 @@ TPU-native counterpart of the reference's overlap machinery:
 
 The MPI ranks become devices of a ``jax.sharding.Mesh``.  Shared-dof
 exchange lists are STATIC padded arrays; ``accumulate`` is one
-``all_gather`` of packed outboxes inside ``shard_map`` (the ICI analogue of
+``all_gather`` of packed outboxes inside ``shard_map`` (the XLA analogue of
 the reference's Isend/Irecv pairs), ``distribute``/``unique`` are purely
 local multiplies.  A host (numpy) path with identical semantics backs the
 device path for setup-time uses and tests.
@@ -228,7 +228,7 @@ class AlgebraicOverlapManager:
     def shardmapAccumulate(self, mesh, axis='d'):
         """Jitted sharded accumulate: [nParts, maxLocal] sharded over
         ``axis`` -> same, accumulated.  One all_gather of packed outboxes
-        on the ICI."""
+        between devices."""
         packSlot = _jd(self.packSlot, INDEX)
         recvPos = _jd(self.recvPos, INDEX)
         recvSlot = _jd(self.recvSlot, INDEX)
@@ -287,7 +287,7 @@ class Repartitioner:
 
     def deviceApply(self, mesh, axis='d'):
         """Jitted device re-shard for equal part counts: the whole source
-        (owner copies) moves once over the ICI (`all_gather`), each device
+        (owner copies) moves once between devices (`all_gather`), each device
         gathers its target slots with static indices — the collective
         analogue of the reference's point-to-point cell/dof Isends
         (repartitioner.pyx getRepartitionedSubdomains)."""

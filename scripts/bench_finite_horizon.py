@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Measured crossover: sparse near-field vs compressed (horizonCorrected)
-representation of the finite-horizon operator (VERDICT r1 item 6).
+representation of the finite-horizon operator.
 
 The reference compresses admissible within-horizon cluster pairs
 (clusterMethodCy.pyx:4019-4033).  Our H2 delegates finite horizons to the

@@ -1,8 +1,8 @@
 """Distributed H2 (S4) and distributed CSR: sharded-vs-serial parity on the
 virtual 8-device mesh (the reference's own validation strategy for its
 distributed operators, drivers/testDistOp.py), plus a scale test where
-densification is impossible (VERDICT r1 item 2: >=100k dofs, per-device
-memory O(N/nd log N))."""
+densification is impossible (>=100k dofs, per-device memory
+O(N/nd log N))."""
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -1,7 +1,6 @@
-"""End-to-end accuracy on the f32 (TPU) dtype path (VERDICT r1 weak #8):
-the benchmark and profiling scripts assemble in float32 on TPU; pin the
-discretization errors on that path so a dtype regression cannot land
-silently."""
+"""End-to-end accuracy on the f32 dtype path: the benchmark assembles in
+float32 on the GPU; pin the discretization errors on that path so a dtype
+regression cannot land silently."""
 import numpy as np
 import jax.numpy as jnp
 

@@ -22,7 +22,7 @@ CONFIGS = [
 
 IDS = ['s0.75-lu', 's0.25-cgmg']
 
-# widened interval matrix (VERDICT r1 item 10): every interval kernel family
+# widened interval matrix: every interval kernel family
 # of the reference's 41-config cache set; disc rows are pinned to our mesh
 # elsewhere (no `triangle` in the image)
 CONFIGS_SLOW = [

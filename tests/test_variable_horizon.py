@@ -1,6 +1,5 @@
 """Variable (function-valued) horizons (ref kernelsCy.pxd:21-43 horizon is a
-``function``; kernelNormalization.pyx:656 pointwise delta(x) scaling;
-VERDICT r1 item 9)."""
+``function``; kernelNormalization.pyx:656 pointwise delta(x) scaling)."""
 import numpy as np
 import jax.numpy as jnp
 
